@@ -15,7 +15,8 @@ import jax
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="mpmc_tpu",
-        description="TPU-native molecular Monte Carlo (MPMC rebuild)")
+        description="Molecular Monte Carlo on an accelerator (MPMC "
+        "rebuild)")
     ap.add_argument("input", help="input script (MPMC option-value grammar)")
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (parity/float64 runs)")
@@ -23,7 +24,7 @@ def main(argv=None):
                     help="write per-corrtime observables as JSONL")
     ap.add_argument("--distributed", action="store_true",
                     help="multi-host run: bootstrap jax.distributed so "
-                    "all hosts' chips form one replica mesh (the "
+                    "all hosts' devices form one replica mesh (the "
                     "reference's multi-node MPI job)")
     ap.add_argument("--coordinator", default=None,
                     help="coordinator address host:port (--distributed)")
@@ -33,6 +34,8 @@ def main(argv=None):
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from mpmc_tpu.utils import compile_cache
+    compile_cache.enable()
     if args.distributed:
         from mpmc_tpu.parallel import multihost
         multihost.initialize(args.coordinator, args.num_processes,

@@ -5,8 +5,8 @@ option table): plain-text ``option value...`` lines, ``!``/``#`` comments,
 parsed into a ``Job`` — the static RunConfig, the continuous Thermo knobs,
 file paths, and ensemble extras (annealing, tempering).  The §2.9 grammar
 is accepted verbatim so reference input decks carry over; options whose
-semantics don't apply on TPU (e.g. ``cuda``) are accepted and ignored with
-a warning.
+semantics don't apply here (e.g. ``cuda``, which selects the reference's
+own GPU code) are accepted and ignored with a warning.
 
 Solver-equivalence note: the reference's polar_gs / polar_gs_ranked /
 polar_sor / polar_esor / polar_palmo selections all converge to the same
@@ -308,17 +308,6 @@ def parse(text: str) -> Job:
             cfg_kw["polar_damp_type"] = ("none" if d == "off" else d)
         elif key == "polar_gamma":
             cfg_kw["polar_gamma"] = float(v0)
-        elif key == "mc_cull":
-            # our extension: column-tile culling in the fused MC
-            # kernels (exact; see RunConfig.mc_cull) — same tri-state
-            # as polar_cull
-            if not vals or v0.lower() == "auto":
-                cfg_kw["mc_cull"] = "auto"
-            elif v0.lower() in ("on", "off"):
-                cfg_kw["mc_cull"] = v0.lower()
-            else:
-                raise ValueError(
-                    f"mc_cull expects auto|on|off, got {v0!r}")
         elif key == "polar_cull":
             # our extension: tile-culled SCF matvec (exact; see
             # RunConfig.polar_cull).  auto (default) = engage for
@@ -366,14 +355,11 @@ def parse(text: str) -> Job:
             # per-replica restart files (the reference's per-MPI-rank
             # staggered restarts, SURVEY §2 "MPI layer" [L])
             job.parallel_restarts = _onoff(v0) if vals else True
-        elif key == "fused_mc":
-            # fused multi-step translate+rotate kernel (rigid NVT)
-            cfg_kw["fused_mc"] = _onoff(v0) if vals else True
         elif key == "allow_charged_cell":
             # downgrade the setup-time net-charge Ewald error to a warning
             cfg_kw["allow_charged_cell"] = _onoff(v0) if vals else True
         elif key == "ewald_mxu":
-            # extension: separable MXU structure factor (ops/ewald.py)
+            # extension: separable matmul structure factor (ops/ewald.py)
             cfg_kw["ewald_mxu"] = _onoff(v0) if vals else True
         elif key == "wrapall":
             cfg_kw["wrapall"] = _onoff(v0) if vals else True
@@ -508,8 +494,7 @@ def parse(text: str) -> Job:
         # tmmc + polar_delayed composes since r4: the collection uses
         # the conditionally unbiased estimator 1{stage-1 accept} *
         # min(1, a2) (importance-weighted under tmmc_bias) — see
-        # metropolis.make_step's tmmc_on note and the fused-path
-        # equivalent in _fused_chunk_uvt_pda.
+        # metropolis.make_step's tmmc_on note.
         if job.simulated_annealing:
             raise ValueError(
                 "tmmc with simulated_annealing is unsupported: the "

@@ -11,8 +11,8 @@ them is exact and build-once:
   grid — positions AND static parameters are stored in cell-major order
   inside the index, so a runtime query never gathers per-atom indices,
   only whole [cap]-wide cell blocks from arrays shared by every chain
-  (TPU-friendly: ~27 contiguous block gathers instead of thousands of
-  element gathers from vmapped per-chain arrays);
+  (~27 contiguous block gathers instead of thousands of element
+  gathers from vmapped per-chain arrays);
 - the default cell edge is ``cutoff + reach`` (reach = the largest
   template-atom-to-COM distance over all species), so the 3x3x3 block of
   cells around the moved molecule's COM provably covers every framework

@@ -11,7 +11,7 @@ tiles); this module owns the k-space machinery:
 
 k-vectors are generated from a *static* integer half-space table (spherical
 cutoff |n| <= kmax, lexicographic half-space, weight 2) so the structure
-factor is one [N, Nk] matmul — MXU-shaped by construction (SURVEY.md §5
+factor is one [N, Nk] matmul — matmul-shaped by construction (SURVEY.md §5
 "Long-context analog": Ewald recip as batched dense matmuls).
 
 The cached structure factor (sk_re, sk_im) enables O(A * Nk) delta updates
@@ -55,7 +55,7 @@ def kvectors(box, kmax: int):
 @functools.lru_cache(maxsize=None)
 def rect_ints(kmax: int):
     """Full-cube integer table [-kmax..kmax]^3 (n1-major C order, n=0
-    included with zero weight) — the layout the separable MXU structure
+    included with zero weight) — the layout the separable matmul structure
     factor produces naturally."""
     rng = np.arange(-kmax, kmax + 1)
     n = np.stack(np.meshgrid(rng, rng, rng, indexing="ij"), -1).reshape(-1, 3)
@@ -113,7 +113,7 @@ def structure_factor_mxu(pos, charge, alive, box, kmax: int):
         t_a = (2 pi box^-T)_a . r,
 
     so the per-atom trig collapses to 3 sin/cos and the k sum becomes
-    per-axis phase-table products contracted on the MXU (SURVEY.md §5:
+    per-axis phase-table products contracted as matmuls (SURVEY.md §5:
     Ewald recip as batched dense matmuls).  Returns (re, im), each
     [(2 kmax+1)^3] flattened in rect_ints order."""
     recip = 2.0 * jnp.pi * jnp.linalg.inv(box).T
@@ -127,7 +127,7 @@ def structure_factor_mxu(pos, charge, alive, box, kmax: int):
     # U[i,a,b] = (q P1)[i,a] * P2[i,b]   (complex)
     ur = q1r[:, :, None] * p2r[:, None, :] - q1i[:, :, None] * p2i[:, None, :]
     ui = q1r[:, :, None] * p2i[:, None, :] + q1i[:, :, None] * p2r[:, None, :]
-    # S[a,b,c] = sum_i U[i,a,b] * P3[i,c]   (complex) — MXU contractions
+    # S[a,b,c] = sum_i U[i,a,b] * P3[i,c]   (complex) — matmul contractions
     s_re = (jnp.einsum("iab,ic->abc", ur, p3r)
             - jnp.einsum("iab,ic->abc", ui, p3i))
     s_im = (jnp.einsum("iab,ic->abc", ur, p3i)
@@ -165,7 +165,7 @@ def recip_energy_from_sk(sk_re, sk_im, box, alpha, kvecs, pair_w=2.0):
 def recip_energy(pos, charge, alive, box, alpha, cfg_or_kmax):
     """Full reciprocal-space energy + structure factor.  Pass the
     RunConfig for the configured representation (ewald_mxu dispatches
-    to the separable MXU structure factor); an int kmax keeps the
+    to the separable matmul structure factor); an int kmax keeps the
     legacy half-space behavior."""
     if isinstance(cfg_or_kmax, int):
         kv = kvectors(box, cfg_or_kmax)

@@ -11,8 +11,7 @@ per-tile math is reused three ways:
 - ``pair_pass``      : full-system energy (scan over all row blocks);
 - ``mol_pair_pass``  : one molecule's rows vs everything (the delta-energy
                        path — functional analog of the reference's
-                       ``recalculate_energy`` pair flags);
-- the Pallas kernel (ops/pallas) consumes the identical per-pair formulas.
+                       ``recalculate_energy`` pair flags).
 
 Terms fused in one pass (they share dr/r): repulsion–dispersion (LJ/SG/...,
 with optional Feynman-Hibbs), Ewald real-space erfc, intramolecular Ewald
@@ -247,7 +246,7 @@ def _block_terms(pos_i, idx_i, row_valid, pos, alive, params, cfg,
     the frozen framework (the reference's forever-cached frozen pairs,
     SURVEY.md §1 "delta energy").  Splitting keeps the huge constant
     framework terms out of the MC delta accumulators, which is what makes
-    f32 accumulation viable (SURVEY.md §7 "Hard parts": f64 vs TPU).
+    f32 accumulation viable (SURVEY.md §7 "Hard parts": f64 vs f32).
 
     ``triangular``: only count j > i (full pass); otherwise count every
     (row, col) pair once (molecule pass, where the caller guarantees rows
@@ -329,9 +328,8 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
     once — at (N-row_start)/N of the cost, which is what the
     per-corrtime fast refresh uses to reuse the cached ``e_frozen``.
 
-    On a TPU backend with a supported configuration this dispatches to the
-    fused Pallas tile kernel (ops/pallas/pair_kernel.py); the jnp scan
-    below is the reference implementation and the f64 parity path.
+    XLA compiles the row-block scan below for every backend; it is also
+    the f64 parity path.
     """
     if cfg.rd_crystal:
         # RD comes from the periodic-image lattice sum (ops/crystal.py);
@@ -366,16 +364,6 @@ def pair_pass(pos, box, atom_alive, params, cfg, temperature,
     box_inv = jnp.linalg.inv(box)
     rc = derived_cutoff(box, cfg)
     alpha = derived_alpha(rc, cfg)
-
-    if cfg.use_pallas and cfg.spatial_axis is None:
-        from mpmc_tpu.ops.pallas import pair_kernel as _pk
-        if _pk.supported(cfg) and jax.default_backend() == "tpu":
-            act, ff = _pk.pair_pass_pallas(pos, box, atom_alive, params,
-                                           cfg, rc, alpha,
-                                           row_start=row_start)
-            # row-restricted: ff slots are exact zeros (no frozen row);
-            # combine() preserves the single-output contract either way
-            return (act, ff) if split_frozen else act.combine(ff)
 
     def body(acc, b):
         i0 = row_start + b * B
@@ -451,19 +439,6 @@ def mol_pair_pass(pos, box, atom_alive, params, cfg, temperature, mol,
                                       temperature, mol, row_pos,
                                       box_inv, rc, alpha)
 
-    # Opt-in only: the fused delta kernel reduces HBM traffic for a
-    # single large chain, but under vmapped multi-chain batching the
-    # sequential pallas grid is ~3x slower than the batched VPU ops the
-    # jnp path compiles to — the chain dimension is the better vector
-    # axis there (measured on v5e-class hardware at N~11k, C=256).
-    if cfg.pallas_delta and cfg.use_pallas:
-        from mpmc_tpu.ops.pallas import pair_kernel as _pk
-        if (_pk.supported(cfg) and jax.default_backend() == "tpu"
-                and params.max_atoms_per_mol <= _pk.A_PAD):
-            return _pk.mol_pair_pass_pallas(pos, box, atom_alive, params,
-                                            cfg, mol, rc, alpha,
-                                            row_pos=row_pos)
-
     from mpmc_tpu.state import mol_rows as _mr
     na = params.mol_natoms[mol]
     valid = jnp.arange(params.max_atoms_per_mol) < na
@@ -521,9 +496,8 @@ def _mol_pair_pass_spatial(pos, box, atom_alive, params, cfg,
     """Column-sharded molecule delta pass (see mol_pair_pass): each
     device processes columns [d nl, (d+1) nl) of the padded atom axis
     against the (replicated) moved rows, then the PairTerms combine
-    with one psum/pmin.  cell lists / rd_crystal / the pallas delta
-    kernel are unsupported under spatial_axis (run_chunk_spatial
-    gate)."""
+    with one psum/pmin.  cell lists / rd_crystal are unsupported
+    under spatial_axis (run_chunk_spatial gate)."""
     from mpmc_tpu.state import mol_rows as _mr
     axis, ndev = cfg.spatial_axis
     n = pos.shape[0]
@@ -631,10 +605,10 @@ def mol_pair_partials(pos, box, atom_alive, params, cfg, temperature, mol,
 
 def per_molecule_sums(v, params):
     """[N] -> [M]: sum of v over each molecule's (contiguous) atom range
-    via one cumulative sum — the TPU-friendly segmented reduction.
-    segment_sum's scatter lowering, and 1-D gathers generally, compile
-    catastrophically on the TPU backend (minutes); the 2-D row-gather
-    form below compiles in well under a second."""
+    via one cumulative sum — a segmented reduction with no scatter
+    (segment_sum's scatter lowering and 1-D gathers compiled very slowly
+    on the backend this was first written for; the 2-D row-gather form
+    below compiles in well under a second)."""
     cs = jnp.concatenate([jnp.zeros((1,), v.dtype), jnp.cumsum(v)])
     cs2 = cs.reshape(-1, 1)
     start = params.mol_start

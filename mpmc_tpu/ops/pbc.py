@@ -52,10 +52,10 @@ def default_cutoff(box):
 def _apply33(v, m):
     """v @ m for last-axis-3 arrays, unrolled into component arithmetic.
 
-    A tiny matmul would hit the MXU, which on TPU either runs in bf16
-    (default precision — corrupts coordinates) or pays the 3x bf16x3 cost
-    under the f32-precision setting; explicit multiplies stay on the VPU,
-    exact and fast."""
+    A tiny matmul would go to a matrix unit, which may run reduced-
+    precision passes (TF32 on a GPU by default — corrupts coordinates)
+    and is wasted on a 3x3 contraction; explicit multiplies are exact
+    and fuse with the surrounding elementwise work."""
     return jnp.stack(
         [v[..., 0] * m[0, a] + v[..., 1] * m[1, a] + v[..., 2] * m[2, a]
          for a in range(3)], axis=-1)

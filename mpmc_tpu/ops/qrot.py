@@ -212,9 +212,9 @@ def free_energies_from_levels(levels, par, valid, temperature):
     "Quantum rotation" + "Parallel tempering"): a temperature swap keeps
     each replica's configuration — and therefore its cached hindered-rotor
     eigensolves — and only re-evaluates the Boltzmann sums at the new T,
-    so the rebuild can ride INSIDE the fused one-launch PT round instead
-    of forcing a host sync (ops/qrot.table_from_eigs is its host-numpy
-    twin; test_qrot pins the two equal)."""
+    so the rebuild can run inside a jitted PT round instead of forcing a
+    host sync (ops/qrot.table_from_eigs is its host-numpy twin;
+    test_qrot pins the two equal)."""
     t = jnp.asarray(temperature, levels.dtype)
 
     def f(p):

@@ -15,9 +15,9 @@ thole_matrix.c, thole_iterative.c [C/M]):
 - Solver: masked conjugate gradient on the SPD system
   (diag(1/alpha) - T) mu = E0.  The reference's Gauss-Seidel / SOR /
   ranked-GS orderings are inherently sequential — the wrong shape for a
-  TPU — but every variant converges to the same linear fixed point
-  (SURVEY.md §7 "SCF solver equivalence"), so CG preserves parity while
-  vectorizing.  A Jacobi mode with relaxation (polar_gamma) is provided as
+  data-parallel device — but every variant converges to the same linear
+  fixed point (SURVEY.md §7 "SCF solver equivalence"), so CG preserves
+  parity while vectorizing.  A Jacobi mode with relaxation (polar_gamma) is provided as
   the structural analog of the reference's iteration family.
 - "direct" solver builds the dense 3N'x3N' matrix and solves exactly
   (the reference's polar_iterative off / thole_bmat path) — used for
@@ -38,6 +38,7 @@ from jax.scipy.special import erf, erfc
 
 from mpmc_tpu.constants import KE
 from mpmc_tpu.ops import pbc as pbc_ops
+from mpmc_tpu.ops import route
 from mpmc_tpu.ops.pairs import derived_cutoff
 
 
@@ -184,34 +185,19 @@ def static_field_wolf(pos, box, atom_alive, params, cfg, chunk=None):
     return ys.reshape(nb * B, 3)[:N]
 
 
-def _use_pallas(cfg):
-    if not cfg.use_pallas:
-        return False
-    if cfg.spatial_axis is not None:
-        return False    # sharded rows run the jnp scan (below)
-    from mpmc_tpu.ops.pallas import thole_kernel as _tk
-    return _tk.supported(cfg) and jax.default_backend() == "tpu"
-
-
-# Test hook: force the tile-culled CG path (with interpret-mode pallas)
-# on backends where _use_pallas would refuse — CPU parity tests.
-_FORCE_CULL = False
-
-
 def cull_supported(cfg) -> bool:
-    """Static gate for the cell-sorted tile-culled SCF matvec (r6; the
-    explicit-small-cutoff opportunity recorded in MEASURE_MATVEC_CULL:
-    at rc = 14 A on the 10.8k bench lattice ~71% of 128-site block
-    pairs have NO cross pair inside the cutoff after a cell sort,
-    while the flagship's derived rc = L/2 geometry cull-proofs itself
-    — docs/performance.md r5).  Requirements: an orthorhombic box (the
-    conservative AABB distance bound below assumes axis-aligned
-    min-image) and the CG solver (the culled matvec lives in
-    solve_scf's sorted space).  ``polar_cull auto`` (default) further
-    requires an EXPLICIT cutoff — the clearly-profitable regime —
-    while ``on`` forces the culled path for derived rc = L/2 too
-    (pays off only once blocks are small against the 0.366 L
-    geometric separation bound, i.e. large cells)."""
+    """Static gate for the cell-sorted tile-culled SCF matvec: with an
+    explicit cutoff well below L/2, most (row block, column block)
+    pairs of cell-sorted sites hold no pair inside rc, and the kernel
+    skips them.  Requirements: an orthorhombic box (the conservative
+    AABB distance bound below assumes axis-aligned min-image) and the
+    CG solver (the culled matvec lives in solve_scf's sorted space).
+    ``polar_cull auto`` (default) further requires an EXPLICIT cutoff:
+    at the derived rc = L/2 about three quarters of the tiles stay
+    visited and the dense kernel measured as fast or faster on an
+    H100 at 10.8k sites (PERF.md); ``on`` forces culling there too,
+    ``off`` never culls.  Whether the kernel runs at all is
+    route.thole_kernel's decision."""
     if cfg.polar_cull == "off":
         return False
     if not (cfg.polarization and cfg.ortho_box
@@ -220,18 +206,13 @@ def cull_supported(cfg) -> bool:
     return cfg.polar_cull == "on" or cfg.cutoff is not None
 
 
-def _cull_enabled(cfg):
-    return cull_supported(cfg) and (_use_pallas(cfg) or _FORCE_CULL)
-
-
 def cull_perm(pos, box, pol_ok, rc):
     """Cell-sort permutation for the culled matvec: x-major
-    lexicographic order on rc/2 cells (thin-slab blocks cull well at
-    both the 256-row and 1024-column tile granularities — see
-    MEASURE_MATVEC_CULL's cell_sorted rows); dead / non-polarizable
-    sites sort last, so trailing tiles empty out and are skipped
-    entirely.  Recomputed per solve (O(N log N) next to the O(N'^2)
-    matvec), so moving sorbates stay spatially tight and no static
+    lexicographic order on rc/2 cells (consecutive sites form thin
+    slabs, which cull well at the kernel's row and column block sizes);
+    dead / non-polarizable sites sort last, so trailing tiles empty out
+    and are skipped entirely.  Recomputed per solve (O(N log N) next to
+    the O(N'^2) matvec), so moving sorbates stay spatially tight and no static
     permutation can go stale.  Returns (perm, inv)."""
     n = pos.shape[0]
     L = jnp.diagonal(box)
@@ -256,7 +237,13 @@ def cull_visit(pos_s, ok_s, box, rc, ti, tj, n_pad):
     |minimage(c_I - c_J)| - h_I - h_J for any points inside blocks
     with centers c and half-widths h, so summing the clamped per-dim
     gaps squared under-estimates every cross-pair r^2 — tiles it culls
-    contain only pairs the kernel's r2 < rc^2 mask already zeroes."""
+    contain only pairs the kernel's r2 < rc^2 mask already zeroes.
+
+    That bound holds in exact arithmetic; the kernel's f32 min-image r2
+    can come out a few ulps of the box length below the true distance.
+    The cut therefore compares against rc widened by a margin of
+    ``32 eps (max L + rc)``, so rounding can never cull a pair the
+    kernel would count."""
     n = pos_s.shape[0]
     L = jnp.diagonal(box).astype(pos_s.dtype)
     p = pos_s - L[None, :] * jnp.floor(pos_s / L[None, :])   # wrap [0,L)
@@ -283,8 +270,18 @@ def cull_visit(pos_s, ok_s, box, rc, ti, tj, n_pad):
     gap = jnp.maximum(jnp.abs(dc) - hwi[:, None, :] - hwj[None, :, :],
                       0.0)
     mind2 = jnp.sum(gap * gap, -1)
-    visit = oki[:, None] & okj[None, :] & (mind2 < rc * rc)
+    eps = jnp.finfo(jnp.float32).eps
+    rcm = rc + 32.0 * eps * (jnp.max(L) + rc)
+    visit = oki[:, None] & okj[None, :] & (mind2 < rcm * rcm)
     return visit.astype(jnp.int32)
+
+
+def _sorted_sites(perm, pos, pol_ok, params):
+    """(pos, pol_ok, polar, mol_id) in the culled solve's cell-sorted
+    order — one place permutes every per-site array the sorted-space
+    matvec reads, so none of them can be passed in the caller's
+    order by mistake."""
+    return pos[perm], pol_ok[perm], params.polar[perm], params.mol_id[perm]
 
 
 def _rowblock_scan(body, N, B, nb, dtype, cfg):
@@ -316,18 +313,21 @@ def _rowblock_scan(body, N, B, nb, dtype, cfg):
     return jax.lax.psum(acc[:N], axis)
 
 
-def static_field_direct(pos, box, atom_alive, params, cfg, chunk=None):
+def static_field_direct(pos, box, atom_alive, params, cfg, chunk=None,
+                        interpret=False):
     """Damped intermolecular electric field E0 [N,3] of permanent charges
     at every site (no ke factor; excludes same-molecule sources, applies
-    the pair cutoff — SURVEY.md §2 'Thole static field', direct variant)."""
-    if _use_pallas(cfg):
+    the pair cutoff — SURVEY.md §2 'Thole static field', direct variant).
+    ``interpret``: tests only — run the kernel in Pallas interpret mode
+    (route.thole_kernel)."""
+    if route.thole_kernel(cfg, interpret):
         from mpmc_tpu.ops.pallas import thole_kernel as _tk
         rc = derived_cutoff(box, cfg)
         return _tk.charge_field(pos, box, atom_alive, params.charge,
                                 params.mol_id, rc,
                                 jnp.asarray(cfg.polar_damp, pos.dtype),
-                                cfg.polar_damp_type,
-                                ortho=cfg.ortho_box).astype(pos.dtype)
+                                cfg.polar_damp_type, ortho=cfg.ortho_box,
+                                interpret=interpret).astype(pos.dtype)
     N = pos.shape[0]
     B = min(chunk or cfg.pair_chunk, N)
     nb = -(-N // B)
@@ -749,13 +749,16 @@ def static_field_ewald(pos, box, atom_alive, params, cfg, chunk=None):
     return jnp.where(atom_alive[:, None], e, 0.0)
 
 
-def dipole_matvec(pos, box, atom_alive, params, cfg, mu, chunk=None):
+def dipole_matvec(pos, box, atom_alive, params, cfg, mu, chunk=None,
+                  interpret=False):
     """(T mu)_i: damped dipole-field of all other sites' dipoles at site i.
 
     E_i = sum_j [ 3 d2 (r.mu_j) r / r^5 - d1 mu_j / r^3 ],  r = r_i - r_j.
-    Includes intramolecular pairs; applies the cutoff.
+    Includes intramolecular pairs; applies the cutoff.  Runs the
+    Triton kernel where route.thole_kernel says so (``interpret``:
+    tests only).
     """
-    if _use_pallas(cfg):
+    if route.thole_kernel(cfg, interpret):
         from mpmc_tpu.ops.pallas import thole_kernel as _tk
         pol_ok = atom_alive & (params.polar > 0)
         rc = derived_cutoff(box, cfg)
@@ -763,8 +766,8 @@ def dipole_matvec(pos, box, atom_alive, params, cfg, mu, chunk=None):
                                 jnp.where(pol_ok[:, None], mu, 0.0),
                                 params.mol_id, rc,
                                 jnp.asarray(cfg.polar_damp, pos.dtype),
-                                cfg.polar_damp_type,
-                                ortho=cfg.ortho_box).astype(pos.dtype)
+                                cfg.polar_damp_type, ortho=cfg.ortho_box,
+                                interpret=interpret).astype(pos.dtype)
     N = pos.shape[0]
     B = min(chunk or cfg.pair_chunk, N)
     nb = -(-N // B)
@@ -795,7 +798,8 @@ def dipole_matvec(pos, box, atom_alive, params, cfg, mu, chunk=None):
     return _rowblock_scan(body, N, B, nb, pos.dtype, cfg)
 
 
-def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None):
+def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None,
+              interpret=False):
     """Solve (diag(1/alpha) - T) mu = E0 by masked CG (or Jacobi/direct).
 
     Returns (mu [N,3], n_iter, r [N,3] or None).  Dead / non-polarizable
@@ -805,30 +809,31 @@ def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None):
     ``r0``: precomputed initial residual b - A mu0 (see residual_delta) —
     skips the warm start's full matvec.  ``r`` is CG's final recurrence
     residual (None for the jacobi/direct solvers), fed back as the next
-    move's r_old.
+    move's r_old.  ``interpret``: tests only — run the kernel (and the
+    culled CG where cull_supported) in Pallas interpret mode.
     """
     pol_ok = atom_alive & (params.polar > 0)
-    cull = _cull_enabled(cfg)
+    cull = route.thole_kernel(cfg, interpret) and cull_supported(cfg)
     if cull:
-        # tile-culled CG (r6): cell-sort the sites per solve, run the
-        # whole CG recurrence in sorted space with the conservative
+        # tile-culled CG: cell-sort the sites per solve, run the whole
+        # CG recurrence in sorted space with the conservative
         # tile-visit table (cull_visit), un-permute at the end.  The
         # culled matvec equals the dense one bit-for-bit (skipped
         # tiles hold only cutoff-masked zero pairs); only the CG
-        # reduction order changes (ulp-level reassociation).
+        # reduction order changes (ulp-level reassociation).  Every
+        # per-site array the kernel reads goes through the same
+        # permutation (_sorted_sites).
         from mpmc_tpu.ops.pallas import thole_kernel as _tk
         rc_c = derived_cutoff(box, cfg)
         perm, invp = cull_perm(pos, box, pol_ok, rc_c)
-        pos = pos[perm]
-        pol_ok = pol_ok[perm]
-        polar_vec = params.polar[perm]
+        pos, pol_ok, polar_vec, mol_s = _sorted_sites(perm, pos, pol_ok,
+                                                      params)
         e0 = e0[perm]
         mu0 = mu0[perm] if mu0 is not None else None
         r0 = r0[perm] if r0 is not None else None
         n_pad, _, _ = _tk.grid_shape(pos.shape[0])
-        visit = cull_visit(pos, pol_ok, box, rc_c, _tk.TI, _tk.TJ,
+        visit = cull_visit(pos, pol_ok, box, rc_c, _tk.BI, _tk.BJ,
                            n_pad)
-        interp = not _use_pallas(cfg)     # _FORCE_CULL CPU tests
     else:
         polar_vec = params.polar
     mask = pol_ok[:, None]
@@ -842,12 +847,13 @@ def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None):
         x = jnp.where(mask, x, 0.0)
         if cull:
             t = _tk.dipole_field(
-                pos, box, pol_ok, x, params.mol_id, rc_c,
+                pos, box, pol_ok, x, mol_s, rc_c,
                 jnp.asarray(cfg.polar_damp, pos.dtype),
                 cfg.polar_damp_type, ortho=cfg.ortho_box, visit=visit,
-                interpret=interp).astype(pos.dtype)
+                interpret=interpret).astype(pos.dtype)
         else:
-            t = dipole_matvec(pos, box, atom_alive, params, cfg, x)
+            t = dipole_matvec(pos, box, atom_alive, params, cfg, x,
+                              interpret=interpret)
         return jnp.where(mask, inv_a * x - t, 0.0)
 
     if cfg.polar_solver == "direct":
@@ -863,7 +869,8 @@ def solve_scf(pos, box, atom_alive, params, cfg, e0, mu0=None, r0=None):
         alpha_site = jnp.where(mask, params.polar[:, None], 0.0)
 
         def jbody(i, mu):
-            t = dipole_matvec(pos, box, atom_alive, params, cfg, mu)
+            t = dipole_matvec(pos, box, atom_alive, params, cfg, mu,
+                              interpret=interpret)
             return jnp.where(mask, (1 - g) * mu + g * alpha_site * (b + t),
                              0.0)
 

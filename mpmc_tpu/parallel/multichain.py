@@ -1,10 +1,10 @@
 """Many independent MC chains per chip via vmap.
 
 The reference's only throughput axis is replicas (1 MPI rank = 1 chain,
-SURVEY.md §2 "MPI layer").  On TPU the same design maps *within* a chip:
+SURVEY.md §2 "MPI layer").  Here the same design maps *within* a device:
 a batch of chains advances in lockstep under ``vmap``, turning the many
 small per-step ops (an [A,N] delta tile, an [K] structure-factor update,
-[N,3] selects) into batched [C,...] ops that actually fill the VPU/MXU.
+[N,3] selects) into batched [C,...] ops wide enough to fill the device.
 Across chips, parallel/replica.py shards further over the mesh.
 
 Statistical note: chains share the move-*type* schedule when the branch
@@ -134,6 +134,14 @@ def shard_batched(tree, mesh):
     return jax.device_put(tree, NamedSharding(mesh, P(AXIS)))
 
 
+def replicate(tree, mesh):
+    """Place a pytree (params, a shared Thermo) on every device of the
+    mesh once, so the shard_mapped chunks read a local copy instead of
+    broadcasting it from the default device on every call."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    return jax.device_put(tree, NamedSharding(mesh, P()))
+
+
 def shard_chains(states: SimState, mesh) -> SimState:
     """Place a stacked-chain state with the chain axis split over the
     mesh (every SimState leaf carries a leading [C] after
@@ -146,13 +154,13 @@ def shard_chains(states: SimState, mesh) -> SimState:
     return shard_batched(states, mesh)
 
 
-def _spec_tuple(n_rep, thermo_batched=False):
-    """(states, params, thermo, *replicated) in_specs: states sharded
-    over AXIS, params replicated, thermo sharded only when its leaves
-    carry the chain dim (PT ladders), trailing tables replicated."""
+def _spec_tuple(thermo_batched=False):
+    """(states, params, thermo) in_specs: states sharded over AXIS,
+    params replicated, thermo sharded only when its leaves carry the
+    chain dim (PT ladders)."""
     from jax.sharding import PartitionSpec as P
     th = P(AXIS) if thermo_batched else P()
-    return (P(AXIS), P(), th) + (P(),) * (n_rep - 2)
+    return (P(AXIS), P(), th)
 
 
 @functools.lru_cache(maxsize=64)
@@ -166,7 +174,7 @@ def _sharded_scan_fn(mesh, cfg, n_steps, thermo_batched):
             thermo_batched=thermo_batched)
 
     return jax.jit(shard_map(local, mesh=mesh,
-                             in_specs=_spec_tuple(2, thermo_batched),
+                             in_specs=_spec_tuple(thermo_batched),
                              out_specs=(P(AXIS), P(AXIS)),
                              check_vma=False))
 
@@ -193,7 +201,7 @@ def _sharded_init_fn(mesh, cfg, frozen_rows, thermo_batched):
             frozen_rows=frozen_rows)
 
     return jax.jit(shard_map(local, mesh=mesh,
-                             in_specs=_spec_tuple(2, thermo_batched),
+                             in_specs=_spec_tuple(thermo_batched),
                              out_specs=P(AXIS), check_vma=False))
 
 
@@ -206,105 +214,3 @@ def initialize_batched_sharded(states, params, cfg, thermo, mesh,
     chains."""
     return _sharded_init_fn(mesh, cfg, int(frozen_rows),
                             thermo_batched)(states, params, thermo)
-
-
-@functools.lru_cache(maxsize=64)
-def _sharded_nvt_fn(mesh, cfg, n_steps, a_max, interpret, refresh_rows,
-                    has_sf, thermo_batched):
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    def local(st, params, thermo, mv_start, mv_natoms, *sf_args):
-        mv_slots = sf_args[0] if has_sf else None
-        if refresh_rows is None:
-            return metropolis._fused_chunk_nvt_multi.__wrapped__(
-                st, params, thermo, mv_start, mv_natoms, cfg, n_steps,
-                a_max, interpret, thermo_batched, mv_slots=mv_slots)
-        return metropolis._fused_block_nvt_multi.__wrapped__(
-            st, params, thermo, mv_start, mv_natoms, cfg, n_steps,
-            a_max, interpret, thermo_batched, refresh_rows,
-            mv_slots=mv_slots)
-
-    n_rep = 4 + (1 if has_sf else 0)
-    return jax.jit(shard_map(local, mesh=mesh,
-                             in_specs=_spec_tuple(n_rep, thermo_batched),
-                             out_specs=(P(AXIS), P(AXIS)),
-                             check_vma=False))
-
-
-def run_chunk_fused_multi_sharded(states, params, cfg, thermo, n_steps,
-                                  mesh, refresh_rows=None,
-                                  thermo_batched=False):
-    """Chain-interleaved fused NVT kernel per device over the mesh:
-    each device runs ONE Pallas launch advancing its local C/D chains
-    (+ the composed per-corrtime refresh when ``refresh_rows`` is set).
-    Raises the interleave ceiling from MAX_MULTI_CHAINS to
-    MAX_MULTI_CHAINS * n_devices total chains.  Gates
-    (mc_kernel.supported_multi, multi_width_ok) apply to the LOCAL
-    width C/D."""
-    import dataclasses
-
-    import numpy as np
-
-    from mpmc_tpu.ops.pallas import mc_kernel
-
-    def build():
-        mv, mva, am, slots = mc_kernel.movable_mols(
-            params, np.asarray(states.mol_alive[0]))
-        return (jnp.asarray(mv), jnp.asarray(mva), int(am),
-                jnp.asarray(slots))
-
-    mv_start, mv_natoms, a_max, mv_slots = metropolis._fused_host_cached(
-        ("nvt_multi", id(params.mol_start), id(states.mol_alive)),
-        (params.mol_start, states.mol_alive), build)
-    interpret = jax.default_backend() != "tpu"
-    rr = None if refresh_rows is None else int(refresh_rows)
-    sf = bool(cfg.quantum_rotation)
-    fn = _sharded_nvt_fn(mesh, cfg, n_steps, int(a_max), interpret, rr,
-                         sf, thermo_batched)
-    args = (mv_slots,) if sf else ()
-    new_states, stats = fn(states, params, thermo, mv_start, mv_natoms,
-                           *args)
-    # NVT never changes aliveness: reattach for the id-keyed cache
-    new_states = dataclasses.replace(new_states,
-                                     mol_alive=states.mol_alive)
-    return new_states, stats
-
-
-@functools.lru_cache(maxsize=64)
-def _sharded_uvt_fn(mesh, cfg, n_steps, A_list, rep_slots, interpret,
-                    refresh_rows, thermo_batched):
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    def local(st, params, thermo, slots, slot_start, species_idx, tmpl):
-        if refresh_rows is None:
-            return metropolis._fused_chunk_uvt_multi.__wrapped__(
-                st, params, thermo, slots, slot_start, species_idx,
-                tmpl, cfg, n_steps, A_list, rep_slots, interpret,
-                thermo_batched)
-        return metropolis._fused_block_uvt_multi.__wrapped__(
-            st, params, thermo, slots, slot_start, species_idx, tmpl,
-            cfg, n_steps, A_list, rep_slots, interpret, refresh_rows,
-            thermo_batched)
-
-    return jax.jit(shard_map(local, mesh=mesh,
-                             in_specs=_spec_tuple(6, thermo_batched),
-                             out_specs=(P(AXIS), P(AXIS)),
-                             check_vma=False))
-
-
-def run_chunk_fused_uvt_multi_sharded(states, params, cfg, thermo,
-                                      n_steps, mesh, refresh_rows=None,
-                                      thermo_batched=False):
-    """Chain-interleaved fused µVT (GCMC) kernel per device over the
-    mesh — one launch per device advances its local C/D chains (see
-    run_chunk_fused_multi_sharded)."""
-    slots, slot_start, species_idx, tmpl, A_list, rep_slots = (
-        metropolis.uvt_fused_tables(params, cfg))
-    interpret = jax.default_backend() != "tpu"
-    rr = None if refresh_rows is None else int(refresh_rows)
-    fn = _sharded_uvt_fn(mesh, cfg, n_steps, A_list, rep_slots,
-                         interpret, rr, thermo_batched)
-    return fn(states, params, thermo, slots, slot_start, species_idx,
-              tmpl)

@@ -1,13 +1,13 @@
-"""Multi-host (DCN) parallel tempering: the reference's MPI job spanning
+"""Multi-host parallel tempering: the reference's MPI job spanning
 nodes, rebuilt on ``jax.distributed`` + the existing replica mesh.
 
 The reference scales past one node by launching MPI ranks across hosts —
 each rank a full replica, swaps over the interconnect (SURVEY.md §2 "MPI
 layer", §5 "Distributed comm backend").  The rebuild keeps the exact
-same shape: every process contributes its local chips to one global
+same shape: every process contributes its local devices to one global
 ``Mesh`` over the replica axis, `parallel/replica.PTRunner` runs
-unchanged (its ``ppermute``/``pmean`` collectives ride ICI within a
-slice and DCN across slices — XLA picks the transport), and the only
+unchanged (its ``ppermute``/``pmean`` collectives ride NVLink within a
+host and the network across hosts — XLA picks the transport), and the only
 multi-host-specific work is (a) the ``jax.distributed`` bootstrap and
 (b) turning host-local replica stacks into globally-sharded arrays.
 
@@ -17,8 +17,9 @@ Launch (one command per host):
         --coordinator host0:1234 --num-processes 4 --process-id $RANK \
         run.inp
 
-or rely on the environment auto-detection (TPU pods set everything up)
-by passing ``--distributed`` alone.
+or rely on the environment auto-detection of a cluster scheduler that
+provides it (e.g. SLURM) by passing ``--distributed`` alone; with nothing
+to detect, give all three options.
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ def initialize(coordinator: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
     """Bootstrap jax.distributed.  With no arguments, relies on the
-    environment (TPU pod runtimes provide coordination out of the box);
-    explicit arguments mirror the reference's mpirun rank wiring."""
+    environment's cluster auto-detection; explicit arguments mirror the
+    reference's mpirun rank wiring."""
     kw = {}
     if coordinator is not None:
         kw["coordinator_address"] = coordinator

@@ -6,7 +6,7 @@ The reference has NO domain decomposition — its MPI axis is replicas only
 O(N^2) pair matrix is tiled by ROW BLOCKS across mesh devices under
 ``shard_map`` — each device evaluates its row-block strip of the
 half-matrix against the full (replicated) position array and the scalar
-partial sums meet in one ``psum`` over ICI.  The Ewald reciprocal term
+partial sums meet in one ``psum`` between devices.  The Ewald reciprocal term
 shards over k-vectors the same way.  This is the "shard the pair
 tile-grid" design from SURVEY.md §5 ("the ring attention of MC") and is
 what scales a SINGLE huge system (10^5+ atoms) across chips, orthogonal
@@ -248,8 +248,8 @@ def solve_scf_sharded(pos, box, atom_alive, params, cfg, e0, mesh: Mesh,
     polarizable system across chips.  Each device evaluates the damped
     dipole field on its round-robin row strip (rows d, d+D, ...) against
     the full replicated dipole vector; strips meet in one psum of the
-    [N,3] field per CG iteration (~N*12 bytes over ICI — trivial next to
-    the O(N^2/D) flops).  The CG state itself stays replicated: every
+    [N,3] field per CG iteration (~N*12 bytes between devices — trivial
+    next to the O(N^2/D) flops).  The CG state itself stays replicated: every
     device runs the identical scalar recurrence, so no further
     communication is needed.
 
@@ -362,9 +362,8 @@ def solve_scf_sharded(pos, box, atom_alive, params, cfg, e0, mesh: Mesh,
 # ops/pairs.mol_pair_pass / pair_pass read the flag and psum).  Every
 # device draws the identical RNG stream and sees identical psum-reduced
 # scalars, so the replicated chains stay in lockstep; communication is a
-# handful of scalars per MC step over ICI.  This is what takes one HUGE
-# system past the single-chip VMEM envelope the fused kernels hit at
-# ~54k atoms (MEASURE_C64.json) — per-device pass cost drops to 1/D.
+# handful of scalars per MC step.  This is what spreads one HUGE system
+# over several devices — per-device pass cost drops to 1/D.
 
 
 def mc_supported(cfg) -> bool:
@@ -388,8 +387,7 @@ def _spatial_cfg(cfg, mesh):
     import dataclasses
     ax = mesh.axis_names[0]
     return dataclasses.replace(
-        cfg, spatial_axis=(ax, int(mesh.shape[ax])),
-        use_pallas=False, pallas_delta=False, fused_mc=False)
+        cfg, spatial_axis=(ax, int(mesh.shape[ax])))
 
 
 @functools.lru_cache(maxsize=64)

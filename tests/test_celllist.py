@@ -18,8 +18,7 @@ def _mof(cutoff=6.0, polar=False, n_side=6, n_h2=12, capacity=24):
         n_side=n_side, spacing=4.0, n_h2=n_h2, capacity=capacity,
         temperature=77.0, pressure=2.0, dtype="float64",
         polarization=polar)
-    cfg = dataclasses.replace(cfg, cutoff=cutoff, cell_list=True,
-                              use_pallas=False)
+    cfg = dataclasses.replace(cfg, cutoff=cutoff, cell_list=True)
     # min_reduction=None: force the index even on this deliberately tiny
     # test system (profitability is a production concern, exactness isn't)
     params = celllist.attach(params, state.pos, state.box, cfg,
@@ -114,7 +113,7 @@ def test_asymmetric_template_coverage():
         box, frozen_pos=fpos, frozen_params=fp, species=(sp,),
         capacity=(2,), initial_counts=(1,), dtype=jnp.float64)
     cfg = RunConfig(ensemble="nvt", cutoff=6.0, cell_list=True,
-                    use_pallas=False, dtype="float64", coulomb="none")
+                    dtype="float64", coulomb="none")
     params = celllist.attach(params, state.pos, state.box, cfg,
                              min_reduction=None)
     assert params.cell_index is not None

@@ -27,7 +27,7 @@ def crystal_energy(order, m=3, a=3.6, eps=100.0, sig=3.2):
     params, state = free_atoms(m * a * np.eye(3), coords, eps=eps, sig=sig)
     cfg = RunConfig(ensemble="nvt", coulomb="none", dtype="float64",
                     rd_crystal=True, rd_crystal_order=order, rd_lrc=False,
-                    pair_chunk=32, use_pallas=False)
+                    pair_chunk=32)
     thermo = Thermo.make(temperature=100.0, n_species=1, dtype=jnp.float64)
     e, aux = energy_mod.total_energy(state.pos, state.box, state.mol_alive,
                                      params, cfg, thermo)
@@ -65,7 +65,7 @@ def test_rd_crystal_mc_bookkeeping():
     params, state = free_atoms(L * np.eye(3), coords, eps=80.0, sig=3.0)
     cfg = RunConfig(ensemble="nvt", coulomb="none", dtype="float64",
                     rd_crystal=True, rd_crystal_order=1, rd_lrc=False,
-                    pair_chunk=16, use_pallas=False)
+                    pair_chunk=16)
     thermo = Thermo.make(temperature=250.0, move_factor=0.7, rot_factor=0.4,
                          n_species=1, dtype=jnp.float64)
     state = metropolis.initialize(state, params, cfg, thermo)
@@ -91,7 +91,7 @@ def test_rd_crystal_gcmc_bookkeeping():
         initial_pos={0: rng.uniform(0, L, (n0, 1, 3))}, dtype=jnp.float64)
     cfg = RunConfig(ensemble="uvt", coulomb="none", dtype="float64",
                     rd_crystal=True, rd_crystal_order=1, rd_lrc=False,
-                    insert_species=(0,), pair_chunk=16, use_pallas=False)
+                    insert_species=(0,), pair_chunk=16)
     thermo = Thermo.make(temperature=200.0, fugacity=[2.0],
                          move_factor=0.7, rot_factor=0.4,
                          insert_probability=0.5, n_species=1,

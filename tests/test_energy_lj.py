@@ -340,7 +340,7 @@ def test_fk_helpers_f32_accuracy():
     """_xcothx_m1/_ln_sinhc must stay accurate in f32 across the
     series/exp-form cutover: the first exp/log-only rewrite lost the
     x^2-scale signal to 1 - e^-2x cancellation for x in [1e-3, 5e-3]
-    (sign flips, >100% error) — the fused MC kernels run FK in f32, so
+    (sign flips, >100% error) — f32 runs evaluate FK per move, so
     this regression test pins the whole range."""
     import numpy as np
 

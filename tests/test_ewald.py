@@ -173,8 +173,7 @@ def test_total_es_invariant_under_ewald_parameters():
     from mpmc_tpu.ops import energy as energy_mod
     params, state, cfg, thermo = systems.mof_h2_gcmc(
         n_side=4, n_h2=8, capacity=16, dtype="float64")
-    cfg = dataclasses.replace(cfg, rd_potential="none", rd_lrc=False,
-                              use_pallas=False)
+    cfg = dataclasses.replace(cfg, rd_potential="none", rd_lrc=False)
     # alpha*rc >= 3.5 keeps the real-space sum converged; kmax=14 keeps
     # the reciprocal sum converged for every alpha here.  The individual
     # terms shift by ~1e5 K across these parameters and must cancel.
@@ -193,7 +192,7 @@ def test_total_es_invariant_under_ewald_parameters():
 
 
 class TestMxuStructureFactor:
-    """Separable MXU S(k) (ops/ewald.py::structure_factor_mxu):
+    """Separable matmul S(k) (ops/ewald.py::structure_factor_mxu):
     identical physics to the half-space path on the same k-sphere."""
 
     def _random_system(self, seed=0, n=40, triclinic=True):
@@ -239,8 +238,7 @@ class TestMxuStructureFactor:
         from mpmc_tpu.models import systems
         params, state, cfg, thermo_ = systems.mof_h2_gcmc(
             n_side=3, n_h2=6, capacity=12, ewald_kmax=4)
-        cfg = dataclasses.replace(cfg, dtype="float64", ewald_mxu=True,
-                                  use_pallas=False)
+        cfg = dataclasses.replace(cfg, dtype="float64", ewald_mxu=True)
         import jax
         to64 = lambda x: (x.astype(jnp.float64)
                           if hasattr(x, "dtype") and x.dtype == jnp.float32

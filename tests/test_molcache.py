@@ -17,8 +17,7 @@ from mpmc_tpu.ops import pairs
 def _sys(**kw):
     params, state, cfg, thermo = systems.mof_h2_gcmc(
         n_side=4, n_h2=8, capacity=16, **kw)
-    cfg = dataclasses.replace(cfg, dtype="float64", mol_cache=True,
-                              use_pallas=False)
+    cfg = dataclasses.replace(cfg, dtype="float64", mol_cache=True)
     to64 = lambda x: (x.astype(jnp.float64)
                       if hasattr(x, "dtype") and x.dtype == jnp.float32
                       else x)
@@ -119,8 +118,7 @@ def test_cache_eligibility_gates():
     assert metropolis.cache_eligible(base)
     for kw in (dict(ensemble="npt"), dict(polarization=True),
                dict(cdvdw=True), dict(rd_crystal=True, rd_lrc=False),
-               dict(cell_list=True), dict(pallas_delta=True),
-               dict(mol_cache=False)):
+               dict(cell_list=True), dict(mol_cache=False)):
         assert not metropolis.cache_eligible(
             dataclasses.replace(base, **kw)), kw
 

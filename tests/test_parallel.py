@@ -416,7 +416,7 @@ def test_batched_chains_with_polar_delta_field():
     from mpmc_tpu.parallel import multichain
     params, state, cfg, thermo = systems.mof_h2_gcmc(
         n_side=3, n_h2=4, capacity=8, polarization=True)
-    cfg = dataclasses.replace(cfg, dtype="float64", use_pallas=False)
+    cfg = dataclasses.replace(cfg, dtype="float64")
     to64 = lambda x: (x.astype(jnp.float64)
                       if hasattr(x, "dtype") and x.dtype == jnp.float32
                       else x)
@@ -498,142 +498,6 @@ def test_uvt_ladder_swap_grand_canonical_factor():
                                np.array([-3.0, -3.0]), 0, rng,
                                n_mols=np.array([50, 0]))
     assert acc == 0 and t[0] == 100.0
-
-
-def test_fused_pt_single_chip():
-    """run_parallel_tempering_fused: fused-kernel replicas + on-device
-    swaps.  Equal-T ladder makes every attempted swap accept
-    (deterministic count); a real ladder preserves the T multiset and
-    advances every replica."""
-    import dataclasses
-
-    params, state, cfg, thermo = systems.mof_h2_gcmc(
-        n_side=3, n_h2=4, capacity=8, ewald_kmax=3, dtype="float32")
-    cfg = dataclasses.replace(cfg, coulomb="wolf", fused_mc=True)
-    # equal-T ladder: ln_p = 0 for every pair -> always accept
-    states, final_t, n_acc = replica.run_parallel_tempering_fused(
-        params, state, cfg, thermo, [150.0] * 4, n_rounds=4,
-        steps_per_round=30, seed=1)
-    assert n_acc == 2 + 1 + 2 + 1
-    # real ladder on the uvt (GCMC) fused path
-    temps = replica.geometric_ladder(100.0, 300.0, 4)
-    states, final_t, n_acc = replica.run_parallel_tempering_fused(
-        params, state, cfg, thermo, temps, n_rounds=3,
-        steps_per_round=40, seed=2)
-    assert sorted(final_t) == pytest.approx(sorted(temps))
-    p0 = np.asarray(state.pos)
-    for st in states:
-        assert int(np.asarray(st.step)) == 120
-        assert float(np.abs(np.asarray(st.pos) - p0).max()) > 0.0
-
-
-def test_fused_pt_multi_chain():
-    """run_parallel_tempering_fused_multi: all replicas in ONE
-    chain-interleaved launch per round + batched on-device swaps.
-    Equal-T ladder -> every attempted swap accepts (deterministic
-    count); real ladder preserves the T multiset and advances every
-    replica."""
-    import dataclasses
-
-    params, state, cfg, thermo = systems.mof_h2_gcmc(
-        n_side=3, n_h2=4, capacity=4, ewald_kmax=3, dtype="float32")
-    cfg = dataclasses.replace(cfg, ensemble="nvt", coulomb="wolf",
-                              fused_mc=True)
-    states, final_t, n_acc = replica.run_parallel_tempering_fused_multi(
-        params, state, cfg, thermo, [150.0] * 4, n_rounds=4,
-        steps_per_round=30, seed=1)
-    assert n_acc == 2 + 1 + 2 + 1
-    temps = replica.geometric_ladder(100.0, 300.0, 4)
-    states, final_t, n_acc = replica.run_parallel_tempering_fused_multi(
-        params, state, cfg, thermo, temps, n_rounds=3,
-        steps_per_round=40, seed=2)
-    assert sorted(final_t) == pytest.approx(sorted(temps))
-    assert np.asarray(states.step).tolist() == [120] * 4
-    p0 = np.asarray(state.pos)
-    for c in range(4):
-        assert float(np.abs(np.asarray(states.pos)[c] - p0).max()) > 0.0
-
-
-def test_fused_pt_rejects_t_dependent_energies():
-    """FH/FK pair energies are temperature-dependent: a ladder swap
-    invalidates the fused path's accumulated totals, so both fused PT
-    drivers must refuse (the scan-path PT refreshes caches per swap
-    instead — mc/run.py)."""
-    import dataclasses
-
-    params, state, cfg, thermo = systems.mof_h2_gcmc(
-        n_side=3, n_h2=4, capacity=8, ewald_kmax=3, dtype="float32")
-    for flag in ("feynman_hibbs", "feynman_kleinert"):
-        c = dataclasses.replace(cfg, ensemble="nvt", coulomb="wolf",
-                                fused_mc=True, **{flag: True})
-        with pytest.raises(ValueError, match="T-dependent|feynman"):
-            replica.run_parallel_tempering_fused(
-                params, state, c, thermo, [150.0] * 2, n_rounds=1,
-                steps_per_round=4)
-        with pytest.raises(ValueError, match="T-dependent|feynman"):
-            replica.run_parallel_tempering_fused_multi(
-                params, state, c, thermo, [150.0] * 2, n_rounds=1,
-                steps_per_round=4)
-
-
-def test_run_mc_pt_uses_fused_multi_kernel(tmp_path):
-    """CLI-level parallel_tempering + fused_mc dispatches to the
-    chain-interleaved PT kernel with on-device swaps, and the base
-    replica reports sane averages."""
-    import dataclasses
-    import io
-
-    from mpmc_tpu.io import input_script
-    from mpmc_tpu.mc import run as run_mod
-
-    pqr = tmp_path / "ar.pqr"
-    lines = []
-    rng = np.random.default_rng(0)
-    for k in range(16):
-        x, y, z = rng.uniform(0.5, 11.5, 3)
-        lines.append(f"ATOM {k+1} Ar AR {k+1} M {x:.3f} {y:.3f} {z:.3f}"
-                     " 39.948 0.0 0.0 119.8 3.405")
-    pqr.write_text("\n".join(lines) + "\nEND\n")
-    job = input_script.parse(f"""
-ensemble nvt
-numsteps 200
-corrtime 100
-temperature 150
-basis1 12 0 0
-basis2 0 12 0
-basis3 0 0 12
-coulomb off
-parallel_tempering on
-n_replicas 4
-max_temperature 400
-ptemp_freq 50
-fused_mc on
-pqr_input {pqr}
-""")
-    log = io.StringIO()
-    avgs = run_mod.run(job, log=log)
-    out = log.getvalue()
-    assert "chain-interleaved PT kernel (R=4" in out
-    assert "swap acceptance:" in out
-    assert avgs.count() == 2
-
-
-def test_pt_and_chains_reject_spinflip_moves():
-    """quantum_rotation spinflips need per-chain, per-T rot_f tables
-    that the PT/chains drivers neither build nor refresh — they must
-    refuse with a clear error instead of crashing on rot_f=None."""
-    import dataclasses
-
-    params, state, cfg, thermo = systems.mof_h2_gcmc(
-        n_side=3, n_h2=4, capacity=8, ewald_kmax=3, dtype="float32")
-    c = dataclasses.replace(cfg, ensemble="nvt", coulomb="wolf",
-                            fused_mc=True, quantum_rotation=True)
-    for runner in (replica.run_parallel_tempering_fused,
-                   replica.run_parallel_tempering_fused_multi):
-        with pytest.raises(ValueError,
-                           match="spinflip|supported_multi"):
-            runner(params, state, c, thermo, [150.0] * 2, n_rounds=1,
-                   steps_per_round=4)
 
 
 def test_mesh_pt_rejects_spinflip():
@@ -737,26 +601,6 @@ class TestChainSharding:
         np.testing.assert_array_equal(np.asarray(a2.energy.total),
                                       np.asarray(b2.energy.total))
 
-    def test_fused_nvt_bit_exact(self):
-        import dataclasses
-        from mpmc_tpu.ops.pallas import mc_kernel
-        p1, s1, c1, t1 = systems.lj_fluid(n=64, dtype="float32")
-        c1 = dataclasses.replace(c1, fused_mc=True)
-        s1 = metropolis.initialize(s1, p1, c1, t1)
-        assert mc_kernel.supported_multi(c1, p1)
-        st1 = multichain.stack_states(s1, 8, seed=5)
-        a1, sa1 = metropolis.run_chunk_fused_multi(st1, p1, c1, t1, 80)
-        mesh = multichain.chain_mesh(4)
-        sh1 = multichain.shard_chains(st1, mesh)
-        b1, sb1 = multichain.run_chunk_fused_multi_sharded(
-            sh1, p1, c1, t1, 80, mesh)
-        np.testing.assert_array_equal(np.asarray(a1.pos),
-                                      np.asarray(b1.pos))
-        np.testing.assert_array_equal(np.asarray(a1.energy.total),
-                                      np.asarray(b1.energy.total))
-        np.testing.assert_array_equal(np.asarray(sa1.accepts),
-                                      np.asarray(sb1.accepts))
-
     def test_chain_devices_cli_matches_unsharded(self, tmp_path):
         """chains 6 / chain_devices 3 through the CLI: identical
         averages to the single-device run (bit-exact trajectories)."""
@@ -791,13 +635,10 @@ pqr_input {pqr}
             np.testing.assert_array_equal(avgs1.samples[k],
                                           avgs2.samples[k]), k
 
-    @pytest.mark.parametrize("fused", [False, True])
-    def test_pt_chain_devices_cli_matches_unsharded(self, tmp_path,
-                                                    fused):
+    def test_pt_chain_devices_cli_matches_unsharded(self, tmp_path):
         """parallel_tempering + chain_devices 2: the PT ladder sharded
         R/D per device (thermos sharded alongside, thermo_batched
-        in_specs) must reproduce the single-device ladder exactly —
-        scan path and fused chain-interleaved path both."""
+        in_specs) must reproduce the single-device ladder exactly."""
         import io
         from mpmc_tpu.io import input_script
         from mpmc_tpu.mc import run as run_mod
@@ -819,8 +660,7 @@ max_temperature 300
 basis1 12 0 0
 basis2 0 12 0
 basis3 0 0 12
-precision {'float32' if fused else 'float64'}
-{'fused_mc on' if fused else ''}
+precision float64
 pqr_input {pqr}
 """
         log1, log2 = io.StringIO(), io.StringIO()
@@ -828,19 +668,14 @@ pqr_input {pqr}
         avgs2 = run_mod.run(
             input_script.parse(deck + "chain_devices 2\n"), log=log2)
         assert "chain sharding: 2 devices x 2 replicas" in log2.getvalue()
-        if fused:
-            assert "chain-interleaved PT kernel" in log2.getvalue()
         for k in ("energy_total", "swap_acceptance"):
             np.testing.assert_array_equal(avgs1.samples[k],
                                           avgs2.samples[k]), k
 
-    @pytest.mark.parametrize("fused", [False, True])
-    def test_pt_uvt_chain_devices_matches_unsharded(self, tmp_path,
-                                                    fused):
+    def test_pt_uvt_chain_devices_matches_unsharded(self, tmp_path):
         """µVT PT + chain_devices: the grand-canonical ladder swap reads
         per-replica molecule counts off the SHARDED alive mask
-        (replica.movable_counts under GSPMD) — sharded == unsharded on
-        both the scan (host_swap) and fused (one-launch) paths."""
+        — sharded == unsharded."""
         import io
         from mpmc_tpu.io import input_script
         from mpmc_tpu.mc import run as run_mod
@@ -863,8 +698,7 @@ max_temperature 450
 basis1 12 0 0
 basis2 0 12 0
 basis3 0 0 12
-precision {'float32' if fused else 'float64'}
-{'fused_mc on' if fused else ''}
+precision float64
 pqr_input {pqr}
 """
         log1, log2 = io.StringIO(), io.StringIO()
@@ -872,8 +706,6 @@ pqr_input {pqr}
         avgs2 = run_mod.run(
             input_script.parse(deck + "chain_devices 2\n"), log=log2)
         assert "chain sharding: 2 devices x 2 replicas" in log2.getvalue()
-        if fused:
-            assert "chain-interleaved PT kernel" in log2.getvalue()
         for k in ("N", "energy_total", "swap_acceptance"):
             np.testing.assert_array_equal(avgs1.samples[k],
                                           avgs2.samples[k]), k
@@ -1009,59 +841,6 @@ pqr_input {pqr}
     # a temperature-ladder reweight must refuse this stream
     with pytest.raises(ValueError, match="pt_gcmc_mbar"):
         analyze.pt_mbar(str(jsonl))
-
-
-def test_pt_fugacity_fused_dispatch(tmp_path):
-    """`pt_fugacity on` + `fused_mc` dispatches the chain-interleaved
-    µVT kernel with per-chain lnfv rows and ON-DEVICE fugacity swaps
-    (run.run_mc_pt_fug fused branch).  The ladder multiset must survive
-    the device swaps, and loading must order with the rung (physics
-    parity with the scan driver is covered by
-    test_pt_fugacity_ladder_ideal_gas + the kernel bit-exactness test
-    in test_fused_mc)."""
-    import io
-    from mpmc_tpu import analyze
-    from mpmc_tpu.io import input_script
-    from mpmc_tpu.mc import run as run_mod
-    pqr = tmp_path / "he.pqr"
-    pqr.write_text(
-        "ATOM 1 He HE 1 M 5.0 5.0 5.0 4.0026 0.0 0.0 0.0 0.0\nEND\n")
-    job = input_script.parse(f"""
-ensemble uvt
-numsteps 1200
-corrtime 300
-temperature 100
-pressure 2.0
-max_pressure 16.0
-pt_fugacity on
-fused_mc on
-n_replicas 4
-ptemp_freq 150
-basis1 20 0 0
-basis2 0 20 0
-basis3 0 0 20
-cutoff 8.0
-coulomb off
-rd_lrc off
-insert_probability 0.6
-max_molecules 96
-pqr_input {pqr}
-""")
-    log = io.StringIO()
-    jsonl = tmp_path / "obs.jsonl"
-    run_mod.run(job, log=log, jsonl_path=str(jsonl))
-    text = log.getvalue()
-    assert "fused_mc: chain-interleaved fugacity-ladder kernel" in text
-    assert "swap acceptance:" in text
-    temps, us, ns, fugs = analyze._read_ladder(str(jsonl))
-    assert fugs is not None
-    np.testing.assert_allclose(
-        np.sort(fugs, axis=1),
-        np.broadcast_to(np.sort(fugs[0]), fugs.shape))
-    # higher rung -> more molecules on time-average across blocks
-    order = np.argsort(fugs, axis=1)
-    n_sorted = np.take_along_axis(ns, order, axis=1)
-    assert n_sorted[1:, -1].mean() > n_sorted[1:, 0].mean()
 
 
 def test_chains_histogram_reduced_over_all_chains(tmp_path):

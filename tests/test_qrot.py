@@ -268,8 +268,7 @@ def test_spinflip_staleness_quantified():
 
     params, state, cfg, thermo = systems.mof_h2_gcmc(
         n_side=3, n_h2=6, capacity=8, dtype="float64")
-    cfg = dataclasses.replace(cfg, ensemble="nvt", quantum_rotation=True,
-                              use_pallas=False)
+    cfg = dataclasses.replace(cfg, ensemble="nvt", quantum_rotation=True)
     state = metropolis.initialize(state, params, cfg, thermo)
     sp = (systems.h2_bss3(),)
     t0 = qrot.free_energy_table(state.pos, state.box,
@@ -325,7 +324,7 @@ def test_table_from_eigs_swap_rebuild_identity():
 
 def test_free_energies_from_levels_matches_host():
     """The on-device F(T) rebuild (level_arrays +
-    free_energies_from_levels, the fused-PT per-swap path) must match
+    free_energies_from_levels, the on-device per-swap rebuild) must match
     the host table_from_eigs at every temperature — same Boltzmann
     sums, array form."""
     import types
@@ -407,78 +406,6 @@ def test_quantum_rotation_parallel_tempering_cli(tmp_path):
     assert "ortho_fraction" in avgs.samples
     assert "swap_acceptance" in avgs.samples
     assert np.mean(avgs.samples["ortho_fraction"][2:]) < 0.45
-
-
-def test_quantum_rotation_uvt_fused_cli(tmp_path):
-    """GCMC + quantum_rotation on the fused µVT kernel (the flagship
-    quantum-H2 sorption shape): insert/delete/displace/spinflip in one
-    Pallas program, rot_f refreshed per corrtime.  Para must still win
-    at 40 K and exchanges must actually happen."""
-    import io
-    from mpmc_tpu.mc import run as run_mod
-    job = _h2_deck(tmp_path, """ensemble uvt
-pressure 0.5
-insert_probability 0.3
-max_molecules 6
-fused_mc on
-precision float32
-""", numsteps=1500)
-    log = io.StringIO()
-    _, avgs = run_mod.run(job, log=log)
-    # the single-chain driver only logs on fused-gate FAILURE
-    assert "WARNING: fused_mc requested" not in log.getvalue()
-    assert "ortho_fraction" in avgs.samples
-    assert avgs.mean("acc_spinflip") > 0.0     # flips attempted+accepted
-    assert avgs.mean("acc_insert") > 0.0       # exchanges really ran
-    # with O(1) molecules the per-block ortho fraction is a 0/1
-    # indicator — only a weak para preference is statistically safe
-    # here (the NVT CLI test pins the relaxation physics tightly)
-    assert np.mean(avgs.samples["ortho_fraction"]) <= 0.75
-
-
-def test_quantum_rotation_pt_fused_cli(tmp_path):
-    """Parallel tempering + quantum_rotation on the FUSED one-launch
-    round (chain-interleaved kernel, on-device swaps): per-replica rot_f
-    rebuilt in-jit from cached eigensolves after every swap
-    (qrot.free_energies_from_levels).  Same physics assertions as the
-    scan-path PT test, plus proof the fused kernel actually ran."""
-    import io
-    from mpmc_tpu.mc import run as run_mod
-    job = _h2_deck(tmp_path,
-                   "parallel_tempering on\nn_replicas 3\n"
-                   "max_temperature 120\nptemp_freq 125\n"
-                   "fused_mc on\nprecision float32\n",
-                   numsteps=1500)
-    log = io.StringIO()
-    avgs = run_mod.run(job, log=log)
-    assert "chain-interleaved PT kernel" in log.getvalue()
-    assert "ortho_fraction" in avgs.samples
-    assert "swap_acceptance" in avgs.samples
-    # chains start 3:1 ortho — relaxing toward para PROVES spinflips
-    # were attempted and accepted in the fused kernel
-    assert np.mean(avgs.samples["ortho_fraction"][2:]) < 0.45
-    assert avgs.mean("swap_acceptance") > 0.0
-
-
-def test_quantum_rotation_pt_fused_uvt_cli(tmp_path):
-    """Grand-canonical PT ladder + quantum_rotation on the fused
-    one-launch µVT round: insert/delete/displace/spinflip per step,
-    on-device (beta_j/beta_i)^dN swaps, in-jit per-swap rot_f rebuild."""
-    import io
-    from mpmc_tpu.mc import run as run_mod
-    job = _h2_deck(tmp_path,
-                   "ensemble uvt\npressure 0.5\ninsert_probability 0.3\n"
-                   "max_molecules 6\n"
-                   "parallel_tempering on\nn_replicas 3\n"
-                   "max_temperature 120\nptemp_freq 125\n"
-                   "fused_mc on\nprecision float32\n",
-                   numsteps=1500)
-    log = io.StringIO()
-    avgs = run_mod.run(job, log=log)
-    assert "chain-interleaved PT kernel" in log.getvalue()
-    assert np.mean(avgs.samples["ortho_fraction"][2:]) < 0.45
-    assert avgs.mean("swap_acceptance") > 0.0
-    assert avgs.mean("N") > 0.0
 
 
 def test_spinflip_staleness_guard_warns_at_parse():

@@ -77,40 +77,3 @@ def test_run_with_target_rescale(tmp_path):
     np.testing.assert_allclose(avgs.samples["spectre_total_charge"], 1.0)
 
 
-def test_spectre_composes_with_fused_path(tmp_path):
-    """SPECTRE + fused_mc: the per-corrtime charge renormalization is a
-    params replacement, and the fused chunk rebuilds its charge plane
-    from params every launch — so the fused path must pick up the new
-    charges with no cache staleness (the host-table cache keys on
-    mol_start identity, which dataclasses.replace preserves)."""
-    import dataclasses
-    import jax.numpy as jnp
-
-    pqr = tmp_path / "sp.pqr"
-    pqr.write_text(
-        "ATOM 1 FW FRZ 1 F 2.0 2.0 2.0 40.0 0.5 0.0 50.0 3.0\n"
-        "ATOM 2 FW FRZ 1 F 10.0 10.0 10.0 40.0 -0.5 0.0 50.0 3.0\n"
-        "ATOM 3 SP SPC 2 S 5.0 5.0 5.0 10.0 0.9 0.0 20.0 3.0\n"
-        "ATOM 4 SP SPC 3 S 8.0 8.0 8.0 10.0 -0.9 0.0 20.0 3.0\n"
-        "END\n")
-    job = input_script.parse(f"""
-ensemble nvt
-numsteps 300
-corrtime 100
-temperature 200
-basis1 14 0 0
-basis2 0 14 0
-basis3 0 0 14
-wolf on
-rd_lrc off
-spectre on
-spectre_max_charge 0.5
-fused_mc on
-pqr_input {pqr}
-""")
-    log = io.StringIO()
-    state, avgs = run_mod.run_mc(job, log=log)
-    out = log.getvalue()
-    assert "WARNING: fused_mc requested but unsupported" not in out
-    assert "spectre: 2 free-charge sites" in out
-    assert max(avgs.samples["spectre_max_abs_charge"]) <= 0.5 + 1e-6

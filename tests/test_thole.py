@@ -306,7 +306,7 @@ def test_field_delta_matches_full_rebuild_over_gcmc_chunk():
     from mpmc_tpu.models import systems
     params, state, cfg, thermo_ = systems.mof_h2_gcmc(
         n_side=3, n_h2=6, capacity=12, polarization=True)
-    cfg = dataclasses.replace(cfg, dtype="float64", use_pallas=False)
+    cfg = dataclasses.replace(cfg, dtype="float64")
     to64 = lambda x: (x.astype(jnp.float64)
                       if hasattr(x, "dtype") and x.dtype == jnp.float32
                       else x)
@@ -407,7 +407,6 @@ def test_residual_mode_bookkeeping_over_gcmc_chunk():
     params, state, cfg, thermo_ = systems.mof_h2_gcmc(
         n_side=3, n_h2=6, capacity=12, polarization=True, dtype="float64")
     import dataclasses
-    cfg = dataclasses.replace(cfg, use_pallas=False)
     assert thole.residual_supported(cfg)
     state = metropolis.initialize(state, params, cfg, thermo_)
     st, stats = metropolis.run_chunk(state, params, cfg, thermo_, 250)
@@ -451,7 +450,6 @@ def test_delayed_acceptance_bookkeeping_and_scf_skip():
     from mpmc_tpu.models import systems
     params, state, cfg, thermo_ = systems.mof_h2_gcmc(
         n_side=3, n_h2=6, capacity=12, polarization=True, dtype="float64")
-    cfg = dataclasses.replace(cfg, use_pallas=False)
     cfg_da = dataclasses.replace(cfg, polar_delayed=True)
     state = metropolis.initialize(state, params, cfg, thermo_)
     st_p, stats_p = metropolis.run_chunk(state, params, cfg, thermo_, 250)
@@ -478,7 +476,7 @@ def test_delayed_acceptance_same_equilibrium():
     from mpmc_tpu.models import systems
     params, state, cfg, thermo_ = systems.mof_h2_gcmc(
         n_side=3, n_h2=6, capacity=8, polarization=True, dtype="float64")
-    cfg = dataclasses.replace(cfg, ensemble="nvt", use_pallas=False)
+    cfg = dataclasses.replace(cfg, ensemble="nvt")
     cfg_da = dataclasses.replace(cfg, polar_delayed=True)
     state = metropolis.initialize(state, params, cfg, thermo_)
 
@@ -619,7 +617,7 @@ def test_dipole_mode_gcmc_observable_parity():
     params, state, cfg, thermo_ = systems.mof_h2_gcmc(
         n_side=3, n_h2=6, capacity=12, polarization=True,
         dtype="float64")
-    cfg = dataclasses.replace(cfg, use_pallas=False, polar_delayed=True,
+    cfg = dataclasses.replace(cfg, polar_delayed=True,
                               polar_precision=1e-6)
     cfg_dip = dataclasses.replace(cfg, polar_precision_mode="dipole",
                                   polar_precision=1e-3)
@@ -672,7 +670,7 @@ def test_dipole_mode_drift_bounded_larger_system():
     params, state, cfg, thermo_ = systems.mof_h2_gcmc(
         n_side=10, n_h2=24, capacity=48, polarization=True,
         dtype="float64", corrtime=100)
-    cfg = dataclasses.replace(cfg, use_pallas=False, polar_delayed=True,
+    cfg = dataclasses.replace(cfg, polar_delayed=True,
                               polar_precision_mode="dipole",
                               polar_precision=3e-4)
     tight = dataclasses.replace(cfg, polar_precision_mode="residual",
@@ -700,7 +698,6 @@ def test_move_deltas_matches_sequential():
     params, state, cfg, thermo_ = systems.mof_h2_gcmc(
         n_side=3, n_h2=6, capacity=12, polarization=True,
         dtype="float64")
-    cfg = dataclasses.replace(cfg, use_pallas=False)
     state = metropolis.initialize(state, params, cfg, thermo_)
     alive = state.atom_alive(params)
     mol = int(np.asarray(params.mol_frozen).argmin())
@@ -757,7 +754,7 @@ def test_field_delta_variant_matches_full_rebuild(variant):
         dtype="float64")
     kw_v = ({"polar_wolf": True} if variant == "wolf"
             else {"polar_ewald": True})
-    cfg = dataclasses.replace(cfg, use_pallas=False, **kw_v)
+    cfg = dataclasses.replace(cfg, **kw_v)
     assert thole.field_delta_supported(cfg)
     assert thole.residual_supported(cfg)
     state = metropolis.initialize(state, params, cfg, thermo_)
@@ -848,7 +845,7 @@ def test_field_delta_variant_gcmc_chunk_bookkeeping(variant):
         dtype="float64")
     kw_v = ({"polar_wolf": True} if variant == "wolf"
             else {"polar_ewald": True})
-    cfg = dataclasses.replace(cfg, use_pallas=False, polar_delayed=True,
+    cfg = dataclasses.replace(cfg, polar_delayed=True,
                               **kw_v)
     assert thole.field_delta_supported(cfg)
     state = metropolis.initialize(state, params, cfg, thermo_)
@@ -868,7 +865,7 @@ def test_field_delta_variant_gcmc_chunk_bookkeeping(variant):
 
 
 def test_field_delta_ewald_mxu_cube_layout():
-    """polar_ewald's delta field must also work over the MXU cube-table
+    """polar_ewald's delta field must also work over the matmul cube-table
     S(k) representation (ewald_mxu): move_deltas and the
     static_field_ewald rebuild both ride ewald.ktable's layout, so the
     delta must equal the rebuild in either representation."""
@@ -881,7 +878,7 @@ def test_field_delta_ewald_mxu_cube_layout():
     params, state, cfg, thermo_ = systems.mof_h2_gcmc(
         n_side=3, n_h2=6, capacity=12, polarization=True,
         dtype="float64")
-    cfg = dataclasses.replace(cfg, use_pallas=False, polar_ewald=True,
+    cfg = dataclasses.replace(cfg, polar_ewald=True,
                               ewald_mxu=True)
     assert thole.field_delta_supported(cfg)
     state = metropolis.initialize(state, params, cfg, thermo_)
@@ -966,7 +963,7 @@ def test_cull_visit_table_is_conservative():
     pos_s, ok_s = pos[perm], ok[perm]
 
     from mpmc_tpu.ops.pallas import thole_kernel as tk
-    ti, tj = 128, 128
+    ti, tj = 32, 64
     n_pad, ni, nj = tk.grid_shape(len(pos), ti, tj)
     visit = np.asarray(thole.cull_visit(
         jnp.asarray(pos_s), jnp.asarray(ok_s), box,
@@ -993,7 +990,7 @@ def test_cull_visit_table_is_conservative():
 def test_culled_dipole_kernel_bit_identical():
     """The visit-table kernel skips only tiles whose pairs the cutoff
     mask already zeroes, so the accumulated field is bit-identical to
-    the dense pass (interpret mode, same tile sizes)."""
+    the dense pass (interpret mode, same block sizes)."""
     pos, ok, mu, L = _random_polar_cloud(seed=1)
     rc = 9.0
     box = jnp.eye(3, dtype=jnp.float32) * L
@@ -1005,12 +1002,13 @@ def test_culled_dipole_kernel_bit_identical():
     mol = jnp.arange(len(pos), dtype=jnp.int32)
 
     from mpmc_tpu.ops.pallas import thole_kernel as tk
-    ti, tj = 128, 128
+    ti, tj = 32, 64
     n_pad, _, _ = tk.grid_shape(len(pos), ti, tj)
     visit = thole.cull_visit(pos_s, ok_s, box,
                              jnp.asarray(rc, jnp.float32), ti, tj,
                              n_pad)
-    kw = dict(interpret=True, ortho=True, ti_size=ti, tj_size=tj)
+    assert float(jnp.mean(visit)) < 0.9     # tiles really are skipped
+    kw = dict(interpret=True, ortho=True, bi=ti, bj=tj)
     args = (pos_s, box, ok_s, mu_s, mol, jnp.asarray(rc, jnp.float32),
             jnp.asarray(2.1304, jnp.float32), "exponential")
     dense = np.asarray(tk.dipole_field(*args, **kw))
@@ -1019,10 +1017,10 @@ def test_culled_dipole_kernel_bit_identical():
 
 
 def test_solve_scf_culled_matches_plain():
-    """End-to-end forced-cull CG (interpret-mode pallas, sorted space)
-    vs the plain jnp CG: same fixed point, same iteration count, and
-    the returned recurrence residual survives the round trip through
-    the permutation."""
+    """End-to-end culled CG (interpret-mode kernel, sorted space) vs the
+    plain jnp CG: same fixed point, same iteration count, and the
+    returned recurrence residual survives the round trip through the
+    permutation."""
     rng = np.random.default_rng(3)
     site = atom_species("Q", eps=0.0, sig=0.0, charge=0.5, polar=0.8)
     boxL, n_mol = 30.0, 60
@@ -1049,12 +1047,8 @@ def test_solve_scf_culled_matches_plain():
     e0 = thole.static_field(state.pos, state.box, alive, params, cfg)
     mu_p, it_p, r_p = thole.solve_scf(state.pos, state.box, alive,
                                       params, cfg, e0)
-    try:
-        thole._FORCE_CULL = True
-        mu_c, it_c, r_c = thole.solve_scf(state.pos, state.box, alive,
-                                          params, cfg, e0)
-    finally:
-        thole._FORCE_CULL = False
+    mu_c, it_c, r_c = thole.solve_scf(state.pos, state.box, alive,
+                                      params, cfg, e0, interpret=True)
     assert int(it_p) == int(it_c)
     np.testing.assert_allclose(np.asarray(mu_c), np.asarray(mu_p),
                                atol=5e-6)
@@ -1063,24 +1057,84 @@ def test_solve_scf_culled_matches_plain():
 
 
 def test_polar_cull_large_system_promotion():
-    """run.py promotes polar_cull auto -> on for large derived-rc
-    ortho polar systems (the measured 54k win); explicit settings and
-    small / explicit-cutoff / triclinic configs are untouched."""
+    """No size-based promotion: polar_cull auto culls only with an
+    explicit cutoff, at any system size (the old auto -> on promotion
+    for >= 49,152 atoms at the derived rc was never measured on the
+    GPU); explicit on/off always win, and triclinic, non-CG and
+    non-polar configs stay dense."""
     import dataclasses
 
-    from mpmc_tpu.mc.run import _promote_polar_cull
-
     base = RunConfig(polarization=True, ortho_box=True)
-    assert _promote_polar_cull(base, 53728).polar_cull == "on"
-    assert _promote_polar_cull(base, 10800).polar_cull == "auto"
-    assert _promote_polar_cull(
-        dataclasses.replace(base, cutoff=14.0), 53728).polar_cull == "auto"
-    assert _promote_polar_cull(
-        dataclasses.replace(base, ortho_box=False),
-        53728).polar_cull == "auto"
-    assert _promote_polar_cull(
-        dataclasses.replace(base, polar_cull="off"),
-        53728).polar_cull == "off"
-    assert _promote_polar_cull(
-        dataclasses.replace(base, polarization=False),
-        53728).polar_cull == "auto"
+    assert not thole.cull_supported(base)          # derived rc, any N
+    assert thole.cull_supported(dataclasses.replace(base, cutoff=14.0))
+    assert thole.cull_supported(dataclasses.replace(base, polar_cull="on"))
+    assert not thole.cull_supported(
+        dataclasses.replace(base, cutoff=14.0, polar_cull="off"))
+    assert not thole.cull_supported(
+        dataclasses.replace(base, cutoff=14.0, ortho_box=False))
+    assert not thole.cull_supported(
+        dataclasses.replace(base, cutoff=14.0, polar_solver="jacobi"))
+    assert not thole.cull_supported(
+        dataclasses.replace(base, cutoff=14.0, polarization=False))
+
+
+def test_culled_solve_passes_sorted_mol_ids(monkeypatch):
+    """Every per-site array the sorted-space matvec reads — positions,
+    masks, AND molecule ids — arrives in the cell-sorted order (the
+    unpermuted mol_id was a latent trap: harmless for the dipole mode,
+    wrong for any mode that reads it)."""
+    from mpmc_tpu.ops.pallas import thole_kernel as tk
+    rng = np.random.default_rng(5)
+    site = atom_species("Q", eps=0.0, sig=0.0, charge=0.5, polar=0.8)
+    boxL, n_mol = 30.0, 40
+    params, state = build_system(
+        np.eye(3) * boxL, species=(site,), capacity=(n_mol,),
+        initial_counts=(n_mol,),
+        initial_pos={0: rng.uniform(0, boxL, (n_mol, 1, 3))},
+        dtype=jnp.float32)
+    cfg = RunConfig(rd_potential="none", coulomb="none",
+                    polarization=True, polar_max_iter=3,
+                    polar_precision=0.0, dtype="float32", rd_lrc=False,
+                    cutoff=8.0, ortho_box=True)
+    alive = state.atom_alive(params)
+    pol_ok = alive & (params.polar > 0)
+    seen = []
+    real = tk.dipole_field
+
+    def spy(pos, box, site_ok, mu, mol_id, *a, **kw):
+        seen.append((np.asarray(pos), np.asarray(mol_id)))
+        return real(pos, box, site_ok, mu, mol_id, *a, **kw)
+
+    monkeypatch.setattr(tk, "dipole_field", spy)
+    e0 = thole.static_field(state.pos, state.box, alive, params, cfg)
+    thole.solve_scf(state.pos, state.box, alive, params, cfg, e0,
+                    interpret=True)
+    assert seen
+    perm, _ = thole.cull_perm(state.pos, state.box, pol_ok,
+                              jnp.asarray(8.0, jnp.float32))
+    perm = np.asarray(perm)
+    pos_k, mol_k = seen[0]
+    np.testing.assert_array_equal(pos_k, np.asarray(state.pos)[perm])
+    np.testing.assert_array_equal(mol_k, np.asarray(params.mol_id)[perm])
+    assert not np.array_equal(mol_k, np.asarray(params.mol_id))
+
+
+def test_cull_visit_margin_covers_f32_rounding():
+    """cull_visit compares against rc widened by an f32 margin: two
+    blocks whose exact gap is a hair above rc (closer than f32 can
+    resolve at this box size) stay visited, while a gap clearly above
+    rc still culls."""
+    from mpmc_tpu.ops.pallas import thole_kernel as tk
+    L, rc = 80.0, 10.0
+    box = jnp.eye(3, dtype=jnp.float32) * L
+    bi = bj = 16
+    n_pad, _, _ = tk.grid_shape(2 * bi, bi, bj)
+    for gap, want in ((rc * (1 + 2e-7), 1), (rc * 1.001, 0)):
+        pos = np.zeros((2 * bi, 3), np.float32)
+        pos[:bi, 0] = 20.0
+        pos[bi:, 0] = np.float32(20.0 + gap)
+        ok = jnp.ones(2 * bi, bool)
+        visit = np.asarray(thole.cull_visit(
+            jnp.asarray(pos), ok, box, jnp.asarray(rc, jnp.float32),
+            bi, bj, n_pad))
+        assert visit[0, 1] == want, (gap, visit)

@@ -119,24 +119,16 @@ def test_tmmc_refresh_preserves_collection():
 
 
 def test_tmmc_gates():
-    """Static gates: the fused µVT kernel ACCEPTS single-species tmmc
-    (r3) — _ideal_gas_tmmc's f64 config is rejected by the f32 physics
-    surface (_supported_physics), not by tmmc, and the same config in
-    f32 passes; non-uvt input scripts are rejected at parse.  (tmmc +
-    polar_delayed parses since r4 — the DA estimator composition,
-    tested above.)"""
-    import dataclasses
-
+    """Static gates: tmmc needs ensemble uvt (rejected at parse
+    otherwise); tmmc + polar_delayed parses since r4 — the DA estimator
+    composition, tested above."""
     from mpmc_tpu.io import input_script
-    from mpmc_tpu.ops.pallas import mc_kernel
 
-    state, params, cfg, thermo, _ = _ideal_gas_tmmc(steps=1)
-    cfg_f = dataclasses.replace(cfg, fused_mc=True)
-    assert not mc_kernel.supported_uvt(cfg_f, params)       # f64
-    assert mc_kernel.supported_uvt(
-        dataclasses.replace(cfg_f, dtype="float32"), params)
     with pytest.raises(ValueError, match="requires ensemble uvt"):
         input_script.parse("ensemble nvt\ntmmc on\n")
+    job = input_script.parse("ensemble uvt\ntmmc on\n"
+                             "polarization on\npolar_delayed on\n")
+    assert job.cfg.tmmc and job.cfg.polar_delayed
 
 
 def test_tmmc_cli_roundtrip(tmp_path):
@@ -363,57 +355,6 @@ tmmc_output {out_p}
     assert np.isfinite(lnpi).sum() >= 2
 
 
-def test_tmmc_fused_run_driver_end_to_end(tmp_path):
-    """CLI-level: `tmmc on` + `fused_mc on` runs the FUSED µVT kernel
-    (r2 verdict item 2 — tmmc no longer forces the scan path) and the
-    written collection matrix keeps the ideal-gas row exactness."""
-    import json
-
-    from mpmc_tpu.io import input_script
-    from mpmc_tpu.mc import run as run_mod
-    from mpmc_tpu.ops.pallas import mc_kernel
-
-    pqr_p = str(tmp_path / "he.pqr")
-    with open(pqr_p, "w") as f:
-        f.write("ATOM 1 He HEL 1 M 10.0 10.0 10.0 4.0026 0.0 0.0 "
-                "0.0 0.0\nEND\n")
-    out_p = str(tmp_path / "tmmc.json")
-    job = input_script.parse(f"""
-ensemble uvt
-temperature 300
-fugacities 0.3
-numsteps 900
-corrtime 300
-move_factor 1.0
-insert_probability 0.5
-basis1 20 0 0
-basis2 0 20 0
-basis3 0 0 20
-pqr_input {pqr_p}
-fused_mc on
-tmmc on
-tmmc_output {out_p}
-""")
-    job.cfg = __import__("dataclasses").replace(
-        job.cfg, rd_potential="none", coulomb="none", rd_lrc=False)
-    log = io.StringIO()
-    su, _ = run_mod.run_mc(job, log=log)
-    assert mc_kernel.supported_uvt(su.cfg, su.params)
-    assert "unsupported" not in log.getvalue()
-    with open(out_p) as f:
-        rec = json.load(f)
-    c = np.asarray(rec["c"])
-    n_att = c[:, 0].sum() + c[:, 2].sum()
-    assert 250 < n_att < 650 and n_att == int(n_att)
-    # ideal-gas exactness through the kernel + host flush:
-    # a_ins(N) = min(1, fV/kT/(N+1))
-    fv_kt = 0.3 * ATM2K_A3 * 8000.0 / 300.0
-    for n in range(c.shape[0]):
-        if c[n, 0] > 0:
-            a = min(1.0, fv_kt / (n + 1.0))
-            assert c[n, 1] / c[n, 0] == pytest.approx(a, rel=5e-5), n
-
-
 def test_tmmc_checkpoint_resume_exact(tmp_path):
     """The host-side f64 TMMC accumulator rides checkpoints via the
     `extra` dict: a 600-step run checkpointed and resumed for 300 more
@@ -515,7 +456,6 @@ def test_tmmc_polar_delayed_scan_estimator_exact_sums():
     from mpmc_tpu.mc.metropolis import DELETE, INSERT
 
     params, state, cfg, thermo = _ideal_polar_gas("float64")
-    cfg = dataclasses.replace(cfg, use_pallas=False)
     state = metropolis.initialize(state, params, cfg, thermo)
     st, stats = metropolis.run_chunk(state, params, cfg, thermo, 600)
     c = np.asarray(st.tmmc_c)
@@ -544,7 +484,7 @@ def test_tmmc_polar_delayed_bias_collection_unbiased():
     from mpmc_tpu.mc import metropolis
 
     params, state, cfg, thermo = _ideal_polar_gas("float64")
-    cfg = dataclasses.replace(cfg, use_pallas=False, tmmc_bias=True)
+    cfg = dataclasses.replace(cfg, tmmc_bias=True)
     # a strong downhill-in-N tilt: the biased walker spreads over N
     eta = -0.6 * np.arange(params.n_mols_max + 1)
     thermo = thermo.replace(tmmc_eta=jnp.asarray(eta, jnp.float64))
@@ -561,125 +501,3 @@ def test_tmmc_polar_delayed_bias_collection_unbiased():
     assert checked >= 2
 
 
-def test_tmmc_polar_delayed_fused_exact_sums():
-    """tmmc + polar_delayed through the FUSED stage-1 kernel
-    (run_chunk_fused_uvt_polar_da): same deterministic identities as
-    the scan test — segment attempt counters bin the stage-1 rejects,
-    the survivor adds min(1,a2) == 1 on the ideal polar gas."""
-    import dataclasses
-
-    from mpmc_tpu.mc import metropolis
-    from mpmc_tpu.mc.metropolis import DELETE, INSERT
-    from mpmc_tpu.ops.pallas import mc_kernel
-
-    params, state, cfg, thermo = _ideal_polar_gas("float32")
-    cfg = dataclasses.replace(cfg, fused_mc=True)
-    assert mc_kernel.supported_uvt_polar_da(cfg, params)
-    state = metropolis.initialize(state, params, cfg, thermo)
-    st, stats = metropolis.run_chunk_fused_uvt_polar_da(
-        state, params, cfg, thermo, 256)
-    c = np.asarray(st.tmmc_c)
-    att = np.asarray(stats.attempts)
-    acc = np.asarray(stats.accepts)
-    assert c[:, 0].sum() == att[INSERT]
-    assert c[:, 2].sum() == att[DELETE]
-    assert c[:, 1].sum() == pytest.approx(acc[INSERT], abs=1e-5)
-    assert c[:, 3].sum() == pytest.approx(acc[DELETE], abs=1e-5)
-    assert (c[:, 1] <= c[:, 0] + 1e-6).all()
-    assert (c[:, 3] <= c[:, 2] + 1e-6).all()
-    assert att[INSERT] + att[DELETE] > 60
-
-
-def test_tmmc_polar_delayed_fused_run_driver(tmp_path):
-    """CLI-level: polarization + polar_delayed + tmmc + fused_mc runs
-    the PDA kernel (not the scan fallback) and writes a collection
-    matrix whose insert ratios track the ideal-gas analytic
-    probabilities statistically (the polar single-run-isotherm
-    composition of r3 verdict item 5)."""
-    import json
-
-    from mpmc_tpu.io import input_script
-    from mpmc_tpu.mc import run as run_mod
-
-    pqr_p = str(tmp_path / "hep.pqr")
-    with open(pqr_p, "w") as f:
-        f.write("ATOM 1 He HEL 1 M 10.0 10.0 10.0 4.0026 0.0 0.3 "
-                "0.0 0.0\nEND\n")
-    out_p = str(tmp_path / "tmmc_pda.json")
-    job = input_script.parse(f"""
-ensemble uvt
-temperature 300
-fugacities 30.0
-numsteps 600
-corrtime 200
-move_factor 1.0
-insert_probability 0.5
-basis1 20 0 0
-basis2 0 20 0
-basis3 0 0 20
-pqr_input {pqr_p}
-fused_mc on
-polarization on
-polar_delayed on
-tmmc on
-tmmc_output {out_p}
-""")
-    job.cfg = __import__("dataclasses").replace(
-        job.cfg, rd_potential="none", coulomb="none", rd_lrc=False)
-    log = io.StringIO()
-    run_mod.run_mc(job, log=log)
-    assert "polar delayed-acceptance stage-1 kernel" in log.getvalue()
-    with open(out_p) as f:
-        rec = json.load(f)
-    c = np.asarray(rec["c"])
-    n_att = c[:, 0].sum() + c[:, 2].sum()
-    assert n_att > 120 and n_att == int(n_att)
-    fv_kt = 30.0 * ATM2K_A3 * 8000.0 / 300.0
-    for n in range(c.shape[0]):
-        if c[n, 0] >= 120:
-            a = min(1.0, fv_kt / (n + 1.0))
-            # realized stage-1 accepts (a2==1): binomial error
-            assert abs(c[n, 1] / c[n, 0] - a) < 0.2, (n, c[n])
-
-
-def test_tmmc_polar_delayed_fused_bias_collection_unbiased():
-    """tmmc_bias + polar_delayed through the FUSED stage-1 kernel (r5,
-    r4 verdict item 2): the eta tilt rides the in-kernel stage-1 coin
-    as two per-segment scalars, and the driver's IS-weighted collection
-    min(1,a1)/min(1,a1 e^dEta) * min(1,a2) must still estimate the
-    UNBIASED ideal-gas acceptance min(1, fV/kT/(N+1)) — the fused
-    mirror of the scan-path test above."""
-    import dataclasses
-
-    import jax.numpy as jnp
-
-    from mpmc_tpu.constants import ATM2K_A3
-    from mpmc_tpu.mc import metropolis
-    from mpmc_tpu.ops.pallas import mc_kernel
-
-    params, state, cfg, thermo = _ideal_polar_gas("float32")
-    cfg = dataclasses.replace(cfg, fused_mc=True, tmmc_bias=True)
-    assert mc_kernel.supported_uvt_polar_da(cfg, params)
-    # a strong downhill-in-N tilt, as in the scan test
-    eta = -0.6 * np.arange(params.n_mols_max + 1)
-    thermo = thermo.replace(tmmc_eta=jnp.asarray(eta, cfg.jdtype))
-    state = metropolis.initialize(state, params, cfg, thermo)
-    st, stats = metropolis.run_chunk_fused_uvt_polar_da(
-        state, params, cfg, thermo, 6000)
-    c = np.asarray(st.tmmc_c, np.float64)
-    att = np.asarray(stats.attempts)
-    from mpmc_tpu.mc.metropolis import DELETE, INSERT
-    assert c[:, 0].sum() == att[INSERT]
-    assert c[:, 2].sum() == att[DELETE]
-    fv_kt = 30.0 * ATM2K_A3 * 20.0 ** 3 / 300.0
-    checked = 0
-    for n in range(c.shape[0]):
-        if c[n, 0] >= 150:
-            a = min(1.0, fv_kt / (n + 1.0))
-            assert abs(c[n, 1] / c[n, 0] - a) < 0.15, (n, c[n])
-            checked += 1
-    assert checked >= 2
-    # the tilt really acted on the walker: a -0.6/molecule eta pushes
-    # the mean occupation well below the unbiased Poisson mean ~9.7
-    n_end = int(np.asarray(st.mol_alive).sum())
-    assert n_end <= 6

@@ -73,7 +73,7 @@ def _dimer_rep(r, repulsion, sig=3.0, eps=30.0, alpha=1.0, omega=0.5):
     cfg = RunConfig(ensemble="nvt", rd_potential="lj", coulomb="none",
                     cdvdw=True, cdvdw_repulsion=repulsion,
                     polar_damp_type="none", dtype="float64",
-                    rd_lrc=False, use_pallas=False)
+                    rd_lrc=False)
     params, state = build_system(
         np.eye(3) * 60.0, species=(sp,), capacity=(2,),
         initial_counts=(2,),
